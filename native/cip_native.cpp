@@ -1,6 +1,6 @@
 // Native host-side planning engine for ska_sdp_cip_tpu.
 //
-// The TPU gridder's execution plan requires, per visibility sample:
+// The gridder's execution plan requires, per visibility sample:
 // wavelength-scaled uv coordinates, w-flip, footprint cells, fractional
 // offsets, and a (tile, w-bin) sort — O(nrow * nchan) host work that
 // dominates time-to-first-image at production scale (1e8+ samples).
@@ -80,10 +80,8 @@ void parallel_for(int64_t n, Fn fn) {
 
 // Run body(begin, end) over [0, bytes) on 8 concurrent streams (or
 // serially below 1 MB). Memory faults on lazily-backed VM memory are
-// hypervisor-bound, not CPU-bound: MAP_POPULATE (serial, in-kernel)
-// decays to ~40-80 MB/s as process RSS grows once the TPU runtime is
-// loaded, while 8 concurrent fault streams sustain 2-3 GB/s under
-// the same pressure (measured on the bench VM, 2026-08-21).
+// hypervisor-bound, not CPU-bound: serial MAP_POPULATE slows as
+// process RSS grows, while concurrent fault streams keep up.
 template <typename Body>
 inline void parallel_byte_streams(size_t bytes, Body body) {
     constexpr int kStreams = 8;
@@ -807,19 +805,18 @@ void cip_slot_plan_sizes(int64_t handle, int64_t* num_blocks_out) {
 // Fill caller-allocated outputs. Slot arrays have num_blocks_padded *
 // block entries; blocks beyond num_blocks are padding (order =
 // pad_order, x0/y0 = support, fx/fy = 0.5, ws = 0, flip = 0, len 0).
-// Also emits the kernel-ready derived columns in the same pass:
-// packed (8, num_slots) row-major with rows {patch-relative x, patch-
-// relative y, ws, block_len broadcast, 0, 0, 0, 0}; flip_sign (+-1);
-// and the static w-shift phase factors cos/sin(phase_factor * ws).
-// packed / flip_sign / phase_cos / phase_sin may be NULL (compact
-// staging rebuilds them on device); order_enc, when non-NULL, gets
+// Also emits the derived slot-transform columns in the same pass:
+// flip_sign (+-1) and the static w-shift phase factors
+// cos/sin(phase_factor * ws). flip_sign / phase_cos / phase_sin may be
+// NULL (compact staging rebuilds them on device); order_enc, when
+// non-NULL, gets
 // the source index with the conjugation flip in the sign
 // (flip ? -(src + 1) : src; padding keeps the positive pad_order).
 void cip_slot_plan_export(
     int64_t handle, int64_t num_blocks_padded, int32_t pad_order,
     int32_t* order, uint8_t* flip, int32_t* x0, int32_t* y0, float* fx,
     float* fy, float* ws, int32_t* blen, int32_t* box, int32_t* boy,
-    int32_t* bin_lo, int32_t* bin_hi, float* packed, float* flip_sign,
+    int32_t* bin_lo, int32_t* bin_hi, float* flip_sign,
     double phase_factor, float* phase_cos, float* phase_sin,
     int32_t* order_enc) {
     SlotPlan* plan;
@@ -831,16 +828,14 @@ void cip_slot_plan_export(
     const int32_t pad_cell = (int32_t)plan->support;
     const int64_t num_slots = num_blocks_padded * B;
     const bool have_coords = plan->x0.size() > 0;
-    if ((packed || x0 || y0 || fx || fy || ws) && !have_coords) {
+    if ((x0 || y0 || fx || fy || ws) && !have_coords) {
         fprintf(stderr,
                 "cip_slot_plan_export: coordinate outputs requested "
                 "from a store_coords=0 plan\n");
         return;
     }
     // Any of the per-slot coordinate outputs (flip, x0, y0, fx, fy,
-    // ws) may be NULL: the Pallas path reads only the packed columns,
-    // and skipping the coordinate exports avoids ~170 MB of stores +
-    // first-touch page faults per 7M-slot plan on lazily-backed VMs.
+    // ws) may be NULL.
     // Parallelize over SLOTS: the outputs are freshly-mapped numpy
     // buffers whose first-touch page faults dominate on lazily-backed
     // VM memory, and a block count below parallel_for's threshold
@@ -884,16 +879,6 @@ void cip_slot_plan_export(
             if (fx) fx[slot] = fxv;
             if (fy) fy[slot] = fyv;
             if (ws) ws[slot] = wsv;
-            if (packed) {
-                const int32_t bx = real ? plan->box[b] : 0;
-                const int32_t by = real ? plan->boy[b] : 0;
-                packed[slot] = (float)(x0v - bx) + fxv;
-                packed[num_slots + slot] = (float)(y0v - by) + fyv;
-                packed[2 * num_slots + slot] = wsv;
-                packed[3 * num_slots + slot] = (float)len;
-                // Rows 4-7 (device-spliced visibilities + alignment
-                // pad) stay as the allocation's zero fill.
-            }
             if (phase_cos) {
                 const double ph = phase_factor * (double)wsv;
                 phase_cos[slot] = (float)std::cos(ph);

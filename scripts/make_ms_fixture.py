@@ -9,7 +9,7 @@ the reference's data uses, reference: measurement_set.py:19-31):
                                  (base64 npy), for byte-level reader
                                  validation without casacore
 
-The TPU build environment has neither network nor casacore, so the
+The build environment has neither network nor casacore, so the
 on-disk casacore table format (table.dat AipsIO serialization,
 StandardStMan buckets) cannot be produced or validated there. This
 script runs in the CI ``ingest-casacore`` job (or any machine with

@@ -59,17 +59,11 @@ def main() -> None:
 
     import numpy as np
 
-    import jax
+    from ska_sdp_cip_tpu.utils.compile_cache import (
+        configure_compile_cache,
+    )
 
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir", str(REPO / ".jax_cache")
-        )
-        jax.config.update(
-            "jax_persistent_cache_min_compile_time_secs", 1.0
-        )
-    except Exception:
-        pass
+    configure_compile_cache()
 
     from ska_sdp_cip_tpu.io.synth import make_synthetic_dataset
     from ska_sdp_cip_tpu.io.visibility_dataset import VisibilityReader
@@ -140,12 +134,8 @@ def main() -> None:
     child_code = f"""
 import sys, numpy as np
 sys.path.insert(0, {str(REPO)!r})
-import jax
-try:
-    jax.config.update("jax_compilation_cache_dir", {str(REPO / '.jax_cache')!r})
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
+from ska_sdp_cip_tpu.utils.compile_cache import configure_compile_cache
+configure_compile_cache()
 from ska_sdp_cip_tpu.io.visibility_dataset import VisibilityReader
 from ska_sdp_cip_tpu.parallel.mesh import make_device_mesh
 from ska_sdp_cip_tpu.parallel.sharded_clean import sharded_major_cycle_clean

@@ -1,6 +1,6 @@
 """
 Production-SCALE streaming proof: >= 50M visibilities through the UVW
-tile store into the 10240-px imaging config on one chip.
+tile store into the 10240-px imaging config on one device.
 
 The reference's production input is a 1-hour MeerKAT MS
 (reference: slurm/csd3_icelake.sh:19) — two to three orders of
@@ -43,15 +43,11 @@ def main() -> None:
 
     import jax
 
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir", str(REPO / ".jax_cache")
-        )
-        jax.config.update(
-            "jax_persistent_cache_min_compile_time_secs", 1.0
-        )
-    except Exception:
-        pass
+    from ska_sdp_cip_tpu.utils.compile_cache import (
+        configure_compile_cache,
+    )
+
+    configure_compile_cache()
 
     from ska_sdp_cip_tpu.invert import pixel_size_lm_from_asec
     from ska_sdp_cip_tpu.io.synth import make_synthetic_dataset

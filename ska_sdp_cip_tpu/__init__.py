@@ -1,15 +1,15 @@
 """
-ska_sdp_cip_tpu — a TPU-native continuum imaging framework.
+ska_sdp_cip_tpu — a JAX continuum imaging framework.
 
 A from-scratch re-design of the SKA SDP continuum imaging pipeline
-(reference: ska-sdp-continuum-imaging-pipeline, ``src/ska_sdp_cip``) for
-JAX / XLA / Pallas on TPU:
+(reference: ska-sdp-continuum-imaging-pipeline, ``src/ska_sdp_cip``) as
+JAX programs compiled by XLA for an accelerator (a GPU):
 
 * visibilities live in a sharded columnar store (``io/``) instead of
   casacore MeasurementSets (ingest from MSv2 is a gated boundary);
 * the invert/predict measurement operators (convolutional gridding,
-  w-stacking, FFT, kernel correction) are MXU-friendly XLA/Pallas programs
-  (``ops/``) instead of the C++ ducc0 wgridder;
+  w-stacking, FFT, kernel correction) are jit-compiled matrix-product
+  programs (``ops/``) instead of the C++ ducc0 wgridder;
 * distribution is one SPMD program over a ``jax.sharding.Mesh`` with
   ``psum`` grid reductions (``parallel/``) instead of dask task graphs;
 * the UVW tile re-ordering stage (``uvw_tiling/``) is vectorized binning
@@ -24,7 +24,7 @@ Public API mirrors the reference package surface
 from .utils.hostmem import enable_malloc_reuse
 
 # Large staging buffers must reuse warm pages (see utils/hostmem.py);
-# on lazily-faulted VM memory this is a ~100x host-staging speedup.
+# on lazily-faulted VM memory first-touch faults dominate staging.
 enable_malloc_reuse()
 
 from ._version import __version__  # noqa: E402

@@ -5,7 +5,7 @@ One-shot MSv2 -> VZ conversion (io/ms_ingest.py): casacore stays
 strictly at this boundary (SURVEY.md section 2b); everything downstream
 reads the native VZ columnar store. The reference has no ingest app —
 it reads MSv2 via python-casacore on every worker
-(reference: measurement_set.py:19-31); here TPU hosts without casacore
+(reference: measurement_set.py:19-31); here hosts without casacore
 read only VZ, and this converter runs wherever casacore installs.
 """
 

@@ -26,7 +26,7 @@ from ..utils.task_metrics import TaskRecorder
 def get_parser() -> argparse.ArgumentParser:
     """Create the CLI parser for the app."""
     parser = argparse.ArgumentParser(
-        description="Launch the TPU-native SKA continuum imaging pipeline",
+        description="Launch the JAX SKA continuum imaging pipeline",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     parser.add_argument("--version", action="version", version=__version__)
@@ -344,6 +344,9 @@ def run_program(cli_args: list[str]) -> None:
 
 def main() -> None:
     """Entry point for the pipeline app."""
+    from ..utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     run_program(sys.argv[1:])
 
 

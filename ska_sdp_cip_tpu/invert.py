@@ -2,7 +2,7 @@
 Invert: visibility dataset -> Stokes-I dirty image.
 
 Mirrors the reference's invert layer (reference: src/ska_sdp_cip/
-invert.py:40-270) with the ducc0 wgridder replaced by the TPU gridding
+invert.py:40-270) with the ducc0 wgridder replaced by the JAX gridding
 program (ops/gridder.py) and the dask task graph replaced by a sharded
 SPMD invert (parallel/sharded_invert.py, re-exported here).
 """
@@ -105,7 +105,7 @@ def grid_invert(
     """
     Invert gridder input, returning ``(unnormalized image, total
     weight)`` — the analog of the reference's ``ducc_invert``
-    (reference: invert.py:152-184), computed by the TPU gridder.
+    (reference: invert.py:152-184), computed by the JAX gridder.
     """
     effective_weights = gridder_input.effective_weights()
     image = dirty_image(

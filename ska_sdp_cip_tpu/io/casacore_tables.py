@@ -3,7 +3,7 @@ Casacore-free reader for the casacore Table Data System (MSv2 subset).
 
 The reference delegates every MeasurementSet read to python-casacore
 (reference: src/ska_sdp_cip/measurement_set.py:8,19-31) — a C++ stack
-that is not installable on typical TPU hosts. This module reads the
+that is not installable on typical accelerator hosts. This module reads the
 on-disk casacore table format directly, covering the subset an MSv2
 ingest needs (SURVEY 2b row 2):
 

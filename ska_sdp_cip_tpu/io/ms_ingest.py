@@ -1,7 +1,7 @@
 """
 One-shot MSv2 -> VZ ingest converter.
 
-The TPU framework reads its native VZ columnar store on the hot path;
+The framework reads its native VZ columnar store on the hot path;
 casacore MeasurementSets are supported only at this ingest boundary
 (design per SURVEY.md section 2b: casacore stays strictly at ingest).
 Reads through python-casacore when installed, else through the

@@ -1,7 +1,7 @@
 """
 Columnar visibility store and windowed reader.
 
-TPU-native replacement for the reference's casacore-backed
+Native replacement for the reference's casacore-backed
 ``MeasurementSetReader`` (reference: src/ska_sdp_cip/measurement_set.py:
 130-358). Two on-disk backends sit behind one reader API:
 
@@ -322,7 +322,7 @@ def _open_backend(path: Path) -> "_Backend":
             import casacore.tables  # noqa: F401
         except ImportError:
             # Casacore-free fallback (io/casacore_tables.py): lets
-            # TPU hosts without the C++ stack ingest an MS directly.
+            # Hosts without the C++ stack ingest an MS directly.
             return _NativeMSBackend(path)
         return _CasacoreBackend(path)
     raise FileNotFoundError(
@@ -568,7 +568,7 @@ class _CasacoreBackend(_Backend):
 class _NativeMSBackend(_Backend):
     """
     Casacore-free MSv2 backend (io/casacore_tables.py) — the fallback
-    when python-casacore is not installed, so TPU hosts can ingest an
+    when python-casacore is not installed, so accelerator hosts can ingest an
     MS without the C++ stack (SURVEY 2b row 2). Columns are decoded
     whole and cached (ingest streams row blocks over them); windowed
     slicing happens in numpy. Format support is the StandardStMan

@@ -4,7 +4,7 @@ as regularized linear least squares.
 
 The reference stops at the dirty image (adjoint only, via ducc0
 ms2dirty — reference: src/ska_sdp_cip/invert.py:152-184); this module
-packages the TPU gridder's invert/predict pair as a linear operator so
+packages the gridder's invert/predict pair as a linear operator so
 major-cycle solvers run entirely on device:
 
     objective(I) = || sqrt(w) (G I - v) ||^2

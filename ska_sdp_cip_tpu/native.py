@@ -79,7 +79,7 @@ def _declare(lib) -> None:
         ct.c_int64, ct.c_int64, ct.c_int32,
         i32p, u8p, i32p, i32p, fp, fp, fp,
         i32p, i32p, i32p, i32p, i32p,
-        fp, fp, ct.c_double, fp, fp, i32p,
+        fp, ct.c_double, fp, fp, i32p,
     ]
     lib.cip_slot_plan_free.argtypes = [ct.c_int64]
     lib.cip_arena_prewarm.argtypes = [i64p, ct.c_int64]
@@ -192,8 +192,7 @@ def build_slot_plan(
     min_blocks: int = 1,
     pad_order: int = 0,
     phase_factor: float = 0.0,
-    export_coords: bool = True,
-    export_packed: bool = True,
+    export_slot_transform: bool = True,
 ) -> dict:
     """
     Fused (uvw, freqs) -> block-slot plan layout: per-slot sample
@@ -203,18 +202,11 @@ def build_slot_plan(
     result is the REAL block count; arrays are padded to
     ``max(num_blocks, min_blocks, 1)`` blocks.
 
-    ``export_coords=False`` skips the per-slot coordinate columns
-    (flip, x0, y0, fx, fy, ws — returned as None): the Pallas kernels
-    read only the packed columns, and the skip avoids ~170 MB of
-    stores + first-touch page faults per 7M-slot plan on
-    lazily-backed VM memory.
-
-    ``export_packed=False`` additionally skips the packed /
-    flip_sign / phase_cos / phase_sin columns (returned as None) and
-    emits ``order_enc`` instead (source index, conjugation flip in
-    the sign) — the compact staging path (ops/gridder.py:
-    build_assemble) rebuilds everything on device, and the skip
-    halves the export's host stores again.
+    ``export_slot_transform=False`` skips the flip_sign / phase_cos /
+    phase_sin columns (returned as None) and emits ``order_enc``
+    instead (source index, conjugation flip in the sign) — the compact
+    staging path (ops/gridder.py:build_assemble) rebuilds them on
+    device.
     """
     lib = load_library()
     uvw = np.ascontiguousarray(uvw, np.float64)
@@ -236,9 +228,8 @@ def build_slot_plan(
         num_bins,
         block,
         max(int(bin_group), 1),
-        # Per-sample coordinate stores are only needed when the
-        # export will read them (coords or packed rows).
-        int(bool(export_coords or export_packed)),
+        # Keep the per-sample coordinates for the slot export.
+        1,
     )
     try:
         nb = ctypes.c_int64()
@@ -248,54 +239,33 @@ def build_slot_plan(
         num_slots = padded * block
         # Pre-faulted buffers: np.empty pages fault erratically
         # slowly on lazily-backed VM memory (see utils/hostmem.py).
-        def _coords(count, dtype):
+        def _transform(count):
             return (
-                alloc_populated(count, dtype) if export_coords else None
+                alloc_populated(count, np.float32)
+                if export_slot_transform
+                else None
             )
 
         out = {
             "order": alloc_populated(num_slots, np.int32),
-            "flip": _coords(num_slots, np.uint8),
-            "x0": _coords(num_slots, np.int32),
-            "y0": _coords(num_slots, np.int32),
-            "fx": _coords(num_slots, np.float32),
-            "fy": _coords(num_slots, np.float32),
-            "ws": _coords(num_slots, np.float32),
+            "flip": alloc_populated(num_slots, np.uint8),
+            "x0": alloc_populated(num_slots, np.int32),
+            "y0": alloc_populated(num_slots, np.int32),
+            "fx": alloc_populated(num_slots, np.float32),
+            "fy": alloc_populated(num_slots, np.float32),
+            "ws": alloc_populated(num_slots, np.float32),
             "block_len": alloc_populated(padded, np.int32),
             "block_ox": alloc_populated(padded, np.int32),
             "block_oy": alloc_populated(padded, np.int32),
             "bin_lo": alloc_populated(padded, np.int32),
             "bin_hi": alloc_populated(padded, np.int32),
-            # Kernel-ready derived columns, same export pass. Only the
-            # 4 real rows (xpos, ypos, ws, len) are materialized and
-            # staged; the drivers assemble the kernels' (8, V) DMA
-            # layout on device (visibility rows 4/5 are per-call data,
-            # rows 6/7 alignment padding).
-            "packed": (
-                alloc_populated(4 * num_slots, np.float32).reshape(
-                    4, num_slots
-                )
-                if export_packed
-                else None
-            ),
-            "flip_sign": (
-                alloc_populated(num_slots, np.float32)
-                if export_packed
-                else None
-            ),
-            "phase_cos": (
-                alloc_populated(num_slots, np.float32)
-                if export_packed
-                else None
-            ),
-            "phase_sin": (
-                alloc_populated(num_slots, np.float32)
-                if export_packed
-                else None
-            ),
+            # Derived slot-transform columns, same export pass.
+            "flip_sign": _transform(num_slots),
+            "phase_cos": _transform(num_slots),
+            "phase_sin": _transform(num_slots),
             "order_enc": (
                 None
-                if export_packed
+                if export_slot_transform
                 else alloc_populated(num_slots, np.int32)
             ),
         }
@@ -315,7 +285,6 @@ def build_slot_plan(
             _ptr(out["block_oy"], ctypes.c_int32),
             _ptr(out["bin_lo"], ctypes.c_int32),
             _ptr(out["bin_hi"], ctypes.c_int32),
-            _ptr(out["packed"], ctypes.c_float),
             _ptr(out["flip_sign"], ctypes.c_float),
             ctypes.c_double(phase_factor),
             _ptr(out["phase_cos"], ctypes.c_float),

@@ -132,3 +132,62 @@ def predict_dft(
                 image_over_n * np.exp(-2j * np.pi * phase)
             )
     return vis
+
+
+def dirty_pixels_dft(
+    uvw: np.ndarray,
+    channel_frequencies: np.ndarray,
+    weighted_visibilities: np.ndarray,
+    pixels: np.ndarray,
+    num_pixels: int,
+    pixel_size_lm: float,
+    *,
+    apply_w: bool = True,
+    chunk: int = 1 << 16,
+    num_threads: int | None = None,
+) -> np.ndarray:
+    """
+    :func:`dirty_image_dft` evaluated at the listed ``(i, j)`` pixels
+    only — O(len(pixels) * nvis) instead of O(npix^2 * nvis), so the
+    oracle reaches full-size observations. ``weighted_visibilities``
+    (nrow, nchan) are the visibilities already multiplied by their
+    weights. Returns float64 values, one per pixel (unnormalized).
+    Sample chunks run on a thread pool (numpy releases the GIL).
+    """
+    from concurrent.futures import ThreadPoolExecutor
+    import os
+
+    uvw = np.asarray(uvw, dtype=np.float64)
+    freqs = np.asarray(channel_frequencies, dtype=np.float64)
+    vis = np.asarray(weighted_visibilities, dtype=np.complex128).ravel()
+    pixels = np.asarray(pixels, dtype=np.int64).reshape(-1, 2)
+
+    half = num_pixels // 2
+    x = (pixels[:, 0] - half) * pixel_size_lm
+    y = (pixels[:, 1] - half) * pixel_size_lm
+    r2 = x**2 + y**2
+    if apply_w:
+        nm1 = -r2 / (1.0 + np.sqrt(1.0 - r2))
+    else:
+        nm1 = np.zeros_like(r2)
+
+    scale = freqs / SPEED_OF_LIGHT
+    u = np.multiply.outer(uvw[:, 0], scale).ravel()
+    v = np.multiply.outer(uvw[:, 1], scale).ravel()
+    w = np.multiply.outer(uvw[:, 2], scale).ravel()
+
+    def partial(start):
+        stop = min(start + chunk, len(vis))
+        phase = (2.0 * np.pi) * (
+            np.multiply.outer(u[start:stop], x)
+            + np.multiply.outer(v[start:stop], y)
+            - np.multiply.outer(w[start:stop], nm1)
+        )
+        block = vis[start:stop]
+        return block.real @ np.cos(phase) - block.imag @ np.sin(phase)
+
+    workers = num_threads or os.cpu_count() or 1
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        parts = list(pool.map(partial, range(0, len(vis), chunk)))
+    values = np.sum(parts, axis=0) if parts else np.zeros(len(pixels))
+    return values / (nm1 + 1.0)

@@ -1,5 +1,5 @@
 """
-Gridding plan: host-side geometry and binning for the TPU wgridder.
+Gridding plan: host-side geometry and binning for the JAX wgridder.
 
 The reference delegates all of this to the C++ ducc0 wgridder internals
 (reference: src/ska_sdp_cip/invert.py:170-183). Here the setup is
@@ -13,17 +13,15 @@ program consumes:
   to halve the plane count, plane spacing ``dw`` is set by the kernel's
   no-alias band;
 * scatter domain tiling — visibilities are binned to rectangular uv
-  tiles whose patch origins satisfy the TPU's memory tiling: the
-  sublane axis uses tile_x = patch_x - roundup(support) cells
+  tiles: the x axis uses tile_x = patch_x - roundup(support) cells
   (origins divisible by 8; patch_x defaults to 48, see
-  DEFAULT_PATCH_X), the lane axis tile_y = 128 cells (origins
-  divisible by 128). Each visibility's W-cell footprint lies inside
-  one static (patch_x, 128) patch.
+  DEFAULT_PATCH_X), the y axis tile_y = 128 cells (origins divisible
+  by 128). Each visibility's W-cell footprint lies inside one static
+  (patch_x, 128) patch.
 * block-slot layout — visibilities are sorted by (tile, w-plane bin)
   and re-packed so block ``b`` occupies exactly slots
-  ``[b*B, (b+1)*B)`` (zero-padded): every DMA offset in the Pallas
-  kernel is statically aligned. Per-plane active-block tables give the
-  program static bounds with no data-dependent shapes.
+  ``[b*B, (b+1)*B)`` (zero-padded). Per-plane active-block tables
+  give the program static bounds with no data-dependent shapes.
 
 Positions are stored as integer footprint cells plus small fractional
 offsets so kernel arguments keep full float32 precision on arbitrarily
@@ -46,36 +44,26 @@ from .kernels import (
 
 SPEED_OF_LIGHT = 299792458.0
 
-#: Patch shape in grid cells: sublane axis x lane axis. The lane axis
-#: stays one register tile (128): patch origins are 128-aligned on it
-#: and visibilities whose lane footprint straddles a 128-cell window
-#: boundary are DUPLICATED into both windows (the ES kernel zeroes
-#: out-of-window cells automatically), so the gridding contraction
-#: never pays for a second 128-lane MXU chunk (straddle fraction
-#: (support - 1) / 128 ~ 4% extra slots). The SUBLANE height is a
-#: tradeoff: the ES factor build and the patch matmul scale with
-#: patch_x while only ~support rows per visibility are nonzero, and
-#: shorter patches mean more tile columns (more strip sentinels,
-#: lower block fill). Measured on the 5.8M-vis bench (one v5e,
-#: support 6): 128 -> 54.7, 64 -> 67.9, 48 -> 70.6, 40 -> 70.4,
-#: 32 -> 69.9 Mvis/s. CIP_PATCH_X overrides.
+#: Patch shape in grid cells (x rows, y columns). Patch origins are
+#: 128-aligned along y, and visibilities whose y footprint straddles a
+#: 128-cell window boundary are DUPLICATED into both windows (the ES
+#: kernel zeroes out-of-window cells automatically), so every patch
+#: contraction is exactly 128 wide (straddle fraction
+#: (support - 1) / 128 ~ 4% extra slots). The x height is a tradeoff:
+#: the ES factor build and the patch matmul scale with patch_x while
+#: only ~support rows per visibility are nonzero, and shorter patches
+#: mean more tile columns (lower block fill). These values are not yet
+#: tuned on the H100 (speed of each: not measured). CIP_PATCH_X
+#: overrides.
 DEFAULT_PATCH_X = 48
 DEFAULT_PATCH_Y = 128
 
 #: Visibilities per block: the contraction length of the per-block
-#: gridding matmul, and the kernel's step granularity. Per-step
-#: overhead (decode, DMA management, VPU op issue) dominates small
-#: steps, so bigger blocks are faster — measured grid-kernel
-#: throughput on one v5e chip at the 5.8M-vis bench workload:
-#: 37.9 (B=128) / 45.4 (256) / 49.7 (512) / 52.9 (1024) Mvis/s —
-#: while slot fill of the (tile, w-bin)-pure groups drops with B
-#: (0.95 / 0.94 / 0.92 / 0.87 there; 128 measured ~0.88 vs ~0.61 at
-#: 512 on a 730k-vis workload where groups are 8x smaller). End-to-end
-#: at 5.8M vis, B=1024 beats 512 on every stage (invert 47.6 vs 45.2
-#: Mvis/s, predict 45.1 vs 39.3, major cycle 0.290 vs 0.316 s): the
-#: per-step overhead saved outweighs the fill loss. make_plan picks a
-#: block size from the visibility count by default
-#: (:func:`auto_block`); CIP_BLOCK overrides.
+#: gridding matmul, and the scan's step granularity. Bigger blocks
+#: mean fewer scan steps, while slot fill of the (tile, w-bin)-pure
+#: groups drops with B. make_plan picks a block size from the
+#: visibility count by default (:func:`auto_block`); the thresholds
+#: are not yet tuned on the H100. CIP_BLOCK overrides.
 DEFAULT_BLOCK = 128
 
 
@@ -110,19 +98,13 @@ def auto_bin_group(num_vis: int) -> int:
     """
     Number of adjacent w-data-bins a block may span. Grouping bins
     merges each uv-tile's per-bin slot groups, so blocks quantize
-    against bigger groups and the padded-slot count drops — and since
-    the kernel's cost is dominated by a per-SLOT-VISIT term (measured
-    on chip: ~1.26 ms per million B-slot plane-visits vs only
-    ~0.29 us per block-step; see docs/src/performance.rst), the fill
-    gain at a fixed block size is what pays. The ES w-factor is
-    exactly zero on the (at most ``g - 1``) extra plane visits a
-    multi-bin block incurs, so accuracy is unchanged. Measured sweep
-    on the 5.8M-vis bench (B=1024 slot-visits): g=1 47.5M, g=2 44.4M,
-    g=3 43.7M, g>=4 saturates at 43.7M (tiles rarely span more bins).
-    NOTE: do NOT also lengthen the block — g=2 with B=2048 measured
-    69.0 Mvis/s vs 70.6 at g=1/B=1024 (the fill loss of longer blocks
-    outweighs the step saving). Override with ``CIP_WBIN_GROUP``
-    (>= 1).
+    against bigger groups and the padded-slot count drops (on the
+    5.8M-vis bench, B=1024 slot-visits: g=1 47.5M, g=2 44.4M, g=3
+    43.7M; g>=4 saturates, tiles rarely span more bins). The ES
+    w-factor is exactly zero on the (at most ``g - 1``) extra plane
+    visits a multi-bin block incurs, so accuracy is unchanged. The
+    thresholds are not yet tuned on the H100. Override with
+    ``CIP_WBIN_GROUP`` (>= 1).
     """
     import os
 
@@ -140,100 +122,13 @@ def auto_bin_group(num_vis: int) -> int:
 def auto_block_and_group(num_vis: int) -> tuple[int, int]:
     """
     (block, bin_group) for a shard of ``num_vis`` samples. The block
-    size is NOT scaled with the group — the measured optimum keeps
-    auto_block's size and takes the grouping purely as a fill gain
-    (see :func:`auto_bin_group`). ``CIP_BLOCK`` pins the block size
+    size is NOT scaled with the group: the grouping is taken purely as
+    a fill gain (see :func:`auto_bin_group`). ``CIP_BLOCK`` pins the block size
     exactly; ``CIP_WBIN_GROUP`` pins the group. Sharded callers must
     derive BOTH from the global per-device count so every shard plans
     the same static program shape.
     """
     return auto_block(num_vis), auto_bin_group(num_vis)
-
-#: Strip-buffer VMEM budget: the kernels keep four (single-plane mode)
-#: or eight (plane-pair mode) (patch_x, seg_width) f32 buffers
-#: resident, which must fit inside the ~16 MB VMEM next to the
-#: input/output rings.
-_SEG_BUDGET_BYTES = 10 * 1024 * 1024
-
-
-def max_seg_width(patch_x: int, num_buffers: int = 4) -> int:
-    """
-    Maximum strip-buffer width in lanes (owned lanes + patch
-    overhang) for the given patch height, floored to a lane tile.
-    At the historical 128-row patches this evaluates to the
-    measured-safe 4992; shorter patches afford proportionally wider
-    strips (fewer lane segments, fewer per-plane kernel calls and
-    seam adds on production-size grids). Plane-pair kernels keep
-    twice the buffers resident (``num_buffers=8``) and get half the
-    width.
-    """
-    width = _SEG_BUDGET_BYTES // (num_buffers * patch_x * 4)
-    return max(128, (width // 128) * 128)
-
-
-def plane_group_of(wstacking: bool, nplanes: int) -> int:
-    """
-    Number of adjacent w-planes each kernel call keeps resident (the
-    plan's step tables then schedule plane GROUPS): every block visit
-    grids onto all G resident planes, dividing the block-step count by
-    ~G (per-step scalar overhead is the dominant kernel cost, see
-    docs/src/performance.rst) and sharing one ES factor build across
-    the group. The ES w-factor is exactly zero on planes outside a
-    block's window, so group visits overhanging the window add zeros —
-    accuracy is unchanged. The trade: MXU work grows with the window
-    overhang (~(W + G - 1) / W plane-visits of dot work per group
-    pass) and strip buffers take 4G VMEM slots (narrower lane
-    segments). ``CIP_PLANE_GROUP`` overrides (1 disables; the legacy
-    ``CIP_PLANE_PAIR``=0/1 maps to 1/2); default auto = 2 whenever
-    w-stacking yields multiple planes.
-    """
-    import os
-
-    env = os.environ.get("CIP_PLANE_GROUP")
-    if env is None:
-        legacy = os.environ.get("CIP_PLANE_PAIR")
-        if legacy is not None:
-            if legacy not in ("auto", "0", "1"):
-                raise ValueError(
-                    "CIP_PLANE_PAIR must be 'auto', '0' or '1'"
-                )
-            env = {"0": "1", "1": "2", "auto": "auto"}[legacy]
-    if env is None:
-        env = "auto"
-    if not (wstacking and nplanes >= 2):
-        return 1
-    if env == "auto":
-        return 2
-    group = int(env)
-    if group < 1 or group > 8:
-        raise ValueError("CIP_PLANE_GROUP must be in [1, 8]")
-    return group
-
-#: Input-DMA pipeline of the strip kernels: per-block data is fetched
-#: PREFETCH_DEPTH block-steps ahead into NUM_IN_BUFFERS slots, hiding
-#: DMA latency behind several steps of compute (a one-step lookahead
-#: left the MXU stalling on ~us DMA latency each ~0.3 us step).
-# NOTE: the step tables pack the in-buffer slot in 3 bits
-# (build_step_tables aux encoding), so NUM_IN_BUFFERS cannot exceed 8
-# without a table format change (a 16-deep experiment faulted the
-# kernel).
-NUM_IN_BUFFERS = 8
-PREFETCH_DEPTH = 6
-
-#: Output ring of the degrid kernels: per-block (2, B) contribution
-#: writes are tiny (1 KB) latency-bound DMAs, so the ring must be deep
-#: enough that a write issued at block-step k has completed by step
-#: k + ring-depth when its slot is reused (a 4-deep ring left the
-#: kernel stalling ~1 us per step waiting on write completions).
-NUM_OUT_BUFFERS = 16
-
-#: Ring depth for the PACKED (plane-group) degrid kernel: its ring
-#: slots are quad-width (4B), and 16 of them pushed the kernel 104 KB
-#: over the 16 MB scoped-vmem limit. Packed steps are ~1.7x wider on
-#: dense plans, so 12 covers a LONGER wall-time window than the
-#: round-4 16-deep ring did. The single-plane kernel keeps 16.
-NUM_OUT_BUFFERS_GROUP = 12
-
 
 def next_even_grid_size(n: int) -> int:
     """Smallest even 7-smooth integer >= n (FFT-friendly sizes)."""
@@ -307,63 +202,23 @@ class GridderPlan:
     #: Number of real (row, chan) visibility samples (before padding).
     num_vis_data: int = 0
 
-    # Lane (y) segmentation: the strip kernels keep (patch_x,
-    # seg_width) buffers resident, so wide grids are processed in
-    # ``num_y_segments`` lane segments of ``seg_lanes`` owned lanes
-    # plus a (patch_y - tile_y)-lane overhang, seam-added by the
-    # caller. nalloc_y == num_y_segments * seg_lanes + overhang.
-    num_y_segments: int = 1
-    seg_lanes: int = 0
-
-    # Strip-kernel step program (see pallas_gridder): per (plane,
-    # y-segment) — or per (plane GROUP, y-segment) when
-    # ``plane_group > 1`` — the interleaved sequence of block steps
-    # (value >= 0) and strip sentinels (value == -1 - strip); -2 pads
-    # inactive tail steps.
-    num_strips: int = 0
-    #: Adjacent w-planes resident per kernel call (see
-    #: :func:`plane_group_of`): step-table row k covers planes
-    #: [k*G, (k+1)*G); group kernels grid all G from one block visit.
-    plane_group: int = 1
-    step_val: np.ndarray = field(repr=False, default=None)
-    #: Kernel-ready derived columns precomputed by the native engine
-    #: in the export pass (None under the numpy fallback;
-    #: ops/gridder.plan_host_arrays computes them on demand):
-    #: packed (8, num_vis) f32, flip_sign (+-1 f32), and the static
-    #: w-shift phase factors cos/sin(-2 pi n_mid * ws).
-    packed: np.ndarray = field(repr=False, default=None)
+    #: Slot-transform columns precomputed by the native engine in the
+    #: export pass (None under the numpy fallback;
+    #: ops/gridder.plan_order_host computes them on demand):
+    #: flip_sign (+-1 f32) and the static w-shift phase factors
+    #: cos/sin(-2 pi n_mid * ws).
     flip_sign: np.ndarray = field(repr=False, default=None)
     phase_cos: np.ndarray = field(repr=False, default=None)
     phase_sin: np.ndarray = field(repr=False, default=None)
-    #: Compact-staging column (export_packed=False): source sample
-    #: index per slot with the conjugation flip in the sign
+    #: Compact-staging column (export_slot_transform=False): source
+    #: sample index per slot with the conjugation flip in the sign
     #: (ops/gridder.py:compact_plan_host_arrays).
     order_enc: np.ndarray = field(repr=False, default=None)
-    step_aux: np.ndarray = field(repr=False, default=None)
-    step_aux2: np.ndarray = field(repr=False, default=None)
-    step_count: np.ndarray = field(repr=False, default=None)
-    first_block: np.ndarray = field(repr=False, default=None)
-    last_blocks: np.ndarray = field(repr=False, default=None)
 
     @property
     def num_vis(self) -> int:
         """Number of visibility slots (num_blocks * block)."""
         return len(self.order)
-
-    @property
-    def seg_width(self) -> int:
-        """Strip-buffer width: owned lanes plus the patch overhang."""
-        return self.seg_lanes + (self.patch_y - self.tile_y)
-
-    @property
-    def num_groups(self) -> int:
-        """Plane groups covered by the step tables."""
-        return -(-self.nplanes // self.plane_group)
-
-    @property
-    def num_step_rows(self) -> int:
-        """First-axis extent of the step tables."""
-        return self.num_groups
 
     def static_signature(self) -> tuple:
         """
@@ -386,27 +241,6 @@ class GridderPlan:
             self.num_blocks,
             self.max_active,
             self.num_vis,
-            self.num_strips,
-            self.num_y_segments,
-            self.seg_lanes,
-            self.step_val.shape[-1],
-            self.plane_group,
-        )
-
-    def constant_signature(self) -> tuple:
-        """
-        The TRACE-TIME constants a compiled gridder program bakes in
-        beyond the shapes of :meth:`static_signature` — fold both
-        into any persisted-executable cache key (utils/aot_cache.py).
-        """
-        return (
-            self.du,
-            self.n_mid,
-            self.beta,
-            self.dw,
-            self.w0,
-            self.pixel_size_lm,
-            self.sigma,
         )
 
 
@@ -446,220 +280,6 @@ def _build_active_table(
     return table
 
 
-#: Bit position of ``step_val`` / shift of the prefetch//wait
-#: encodings carrying the WIDTH code in packed-mode step tables
-#: (build_step_tables(..., block_tile=...)): a width-W step processes
-#: blocks (b, .., b + W - 1) — same uv tile, contiguous slot ranges —
-#: in one kernel step with one W-wide input DMA, dividing the
-#: per-step scalar overhead. Width codes (2 bits): 0 -> 1 block,
-#: 1 -> 2 blocks (the round-4 pair), 2 -> 4 blocks (round 5). Caps
-#: block ids at 2^20 (a 7 GB-of-slots plan at B=128).
-PAIR_FLAG_SHIFT = 20
-
-#: Step widths by width code.
-STEP_WIDTHS = (1, 2, 4)
-
-
-def _pair_entries(
-    active: np.ndarray, tile: np.ndarray
-) -> tuple[np.ndarray, np.ndarray]:
-    """
-    Greedy left-to-right packing of an ascending active-block list:
-    entries are (start_block, width_code) where a width-W entry
-    covers blocks (b, .., b + W - 1) — allowed when they are
-    id-consecutive AND on the same uv tile (same patch origin,
-    contiguous slots). Widths are tried largest-first (4, 2, 1).
-    """
-    nb = len(active)
-    starts = []
-    flags = []
-    j = 0
-
-    def run_ok(j, width):
-        if j + width - 1 >= nb:
-            return False
-        base = active[j]
-        for k in range(1, width):
-            if (
-                active[j + k] != base + k
-                or tile[active[j + k]] != tile[base]
-            ):
-                return False
-        return True
-
-    while j < nb:
-        if run_ok(j, 4):
-            starts.append(active[j])
-            flags.append(2)
-            j += 4
-        elif run_ok(j, 2):
-            starts.append(active[j])
-            flags.append(1)
-            j += 2
-        else:
-            starts.append(active[j])
-            flags.append(0)
-            j += 1
-    return (
-        np.asarray(starts, dtype=np.int64),
-        np.asarray(flags, dtype=np.int64),
-    )
-
-
-def build_step_tables(
-    plane_lo: np.ndarray,
-    plane_hi: np.ndarray,
-    block_strip: np.ndarray,
-    nplanes: int,
-    num_strips: int,
-    block_segment: np.ndarray | None = None,
-    num_segments: int = 1,
-    block_tile: np.ndarray | None = None,
-) -> dict:
-    """
-    Per-plane step programs for the strip-resident Pallas kernels: the
-    interleaved sequence of block steps and strip sentinels, plus the
-    side-channel scalars (DMA prefetch target, buffer parities,
-    two-behind block for the degrid out-DMA drain) the kernel reads
-    from SMEM. Encoding:
-
-    * ``step_val``: block id (>= 0), sentinel ``-1 - strip``, pad -2.
-      Packed mode additionally sets the 2-bit WIDTH code at
-      ``PAIR_FLAG_SHIFT`` on steps covering blocks
-      (b, .., b + width - 1), width in ``STEP_WIDTHS``.
-    * ``step_aux``: ``(pref + 1) << 8 | out_parity << 4 |
-      strip_parity << 3 | in_parity`` where ``pref`` is the block
-      whose input DMA to start at this step (``PREFETCH_DEPTH`` steps
-      ahead), ``in_parity`` the step's slot in the
-      ``NUM_IN_BUFFERS``-deep input pipeline, and ``out_parity`` its
-      slot in the ``NUM_OUT_BUFFERS``-deep degrid output ring. In
-      packed mode ``pref`` is ``(block << 2) | width_code``.
-    * ``step_aux2``: the block-step ``NUM_OUT_BUFFERS`` steps behind,
-      plus one (0 if none) — the degrid kernel waits that step's
-      output DMA before reusing its ring slot. Packed mode:
-      ``((block << 2) | width_code) + 1``.
-    * ``first_block``: the first ``PREFETCH_DEPTH`` steps' blocks,
-      whose DMAs step 0 launches to fill the pipeline (packed mode:
-      ``(block << 2) | width_code``).
-    * ``last_blocks``: the final ``NUM_OUT_BUFFERS`` block-steps
-      encoded as ``block << 4 | out_parity`` (packed mode:
-      ``((block << 2) | width_code) << 4 | out_parity``) for the
-      degrid output drain.
-
-    ``block_tile`` (the per-block uv-tile identity) enables packed
-    mode — used by the plane-group kernels; the single-plane kernels
-    read the legacy encoding and must be given tables built without
-    it.
-    """
-    num_blocks = len(plane_lo)
-    if block_segment is None:
-        block_segment = np.zeros(num_blocks, dtype=np.int64)
-    pair_mode = block_tile is not None
-    # Packed (group) tables drive the quad-width degrid ring; legacy
-    # tables drive the single-plane kernels' 16-deep ring.
-    ring = NUM_OUT_BUFFERS_GROUP if pair_mode else NUM_OUT_BUFFERS
-    if pair_mode and num_blocks >= (1 << PAIR_FLAG_SHIFT):
-        raise ValueError(
-            f"pair-mode step tables cap block ids at "
-            f"2^{PAIR_FLAG_SHIFT}; got {num_blocks} blocks"
-        )
-
-    # Entry lists (block steps after pairing) per (plane, y-segment)
-    entries = {}
-    max_ne = 0
-    for p in range(nplanes):
-        on_plane = np.flatnonzero((plane_lo <= p) & (plane_hi >= p))
-        segs = block_segment[on_plane]
-        for g in range(num_segments):
-            active = on_plane[segs == g]
-            if pair_mode:
-                starts, flags = _pair_entries(active, block_tile)
-            else:
-                starts = active
-                flags = np.zeros(len(active), dtype=np.int64)
-            entries[p, g] = (starts, flags)
-            max_ne = max(max_ne, len(starts))
-    max_steps = max(max_ne + num_strips, 1)
-
-    shape = (nplanes, num_segments, max_steps)
-    step_val = np.full(shape, -2, dtype=np.int32)
-    step_aux = np.zeros(shape, dtype=np.int32)
-    step_aux2 = np.zeros(shape, dtype=np.int32)
-    step_count = np.zeros((nplanes, num_segments), dtype=np.int32)
-    first_block = np.full(
-        (nplanes, num_segments, PREFETCH_DEPTH), -1, dtype=np.int32
-    )
-    last_blocks = np.full(
-        (nplanes, num_segments, ring), -1, dtype=np.int32
-    )
-
-    for (p, g), (starts, flags) in entries.items():
-        nb = len(starts)
-        strips = (
-            block_strip[starts] if nb else np.zeros(0, dtype=np.int64)
-        )
-        if pair_mode:
-            vals_enc = (starts | (flags << PAIR_FLAG_SHIFT)).astype(
-                np.int32
-            )
-            # Prefetch / wait / drain encoding:
-            # (block << 2) | width_code
-            side_enc = ((starts << 2) | flags).astype(np.int32)
-        else:
-            vals_enc = starts.astype(np.int32)
-            side_enc = starts.astype(np.int32)
-        # Sentinel for strip s goes after the last block of strip s
-        per_strip = np.bincount(strips, minlength=num_strips)
-        # Step position of entry j: j + (number of sentinels before
-        # it) = j + strips[j]; sentinel s at per-strip cumsum + s + 1.
-        pos_blocks = np.arange(nb) + strips
-        pos_sent = np.cumsum(per_strip) + np.arange(num_strips)
-        vals = np.empty(nb + num_strips, dtype=np.int32)
-        vals[pos_blocks] = vals_enc
-        vals[pos_sent] = -1 - np.arange(num_strips)
-        aux = np.zeros(nb + num_strips, dtype=np.int32)
-        # Current strip at each step (for the buffer-parity bit)
-        cur_strip = np.zeros(nb + num_strips, dtype=np.int64)
-        cur_strip[pos_blocks] = strips
-        cur_strip[pos_sent] = np.arange(num_strips)
-        aux |= (cur_strip % 2).astype(np.int32) << 3
-        in_par = (np.arange(nb) % NUM_IN_BUFFERS).astype(np.int32)
-        out_par = (np.arange(nb) % ring).astype(np.int32)
-        aux[pos_blocks] |= in_par | (out_par << 4)
-        pref = np.zeros(nb + num_strips, dtype=np.int32)
-        if nb > PREFETCH_DEPTH:
-            pref[pos_blocks[:-PREFETCH_DEPTH]] = (
-                side_enc[PREFETCH_DEPTH:] + 1
-            )
-        aux |= pref << 8
-        aux2 = np.zeros(nb + num_strips, dtype=np.int32)
-        if nb > ring:
-            aux2[pos_blocks[ring:]] = side_enc[:-ring] + 1
-        n_steps = nb + num_strips
-        step_val[p, g, :n_steps] = vals
-        step_aux[p, g, :n_steps] = aux
-        step_aux2[p, g, :n_steps] = aux2
-        step_count[p, g] = n_steps
-        head = side_enc[:PREFETCH_DEPTH]
-        first_block[p, g, : len(head)] = head
-        # Encoded (enc << 4 | out_parity) for the degrid drain
-        tail = side_enc[-ring:]
-        tail_k = np.arange(nb)[-ring:]
-        for slot, (enc, k) in enumerate(zip(tail, tail_k)):
-            last_blocks[p, g, slot] = (int(enc) << 4) | (
-                k % ring
-            )
-
-    return {
-        "step_val": step_val,
-        "step_aux": step_aux,
-        "step_aux2": step_aux2,
-        "step_count": step_count,
-        "first_block": first_block,
-        "last_blocks": last_blocks,
-    }
-
-
 def plan_shape_maxima(plans: list) -> dict:
     """
     The data-dependent static shapes of a plan list, as the maxima a
@@ -672,7 +292,6 @@ def plan_shape_maxima(plans: list) -> dict:
         "num_blocks": max(p.num_blocks for p in plans),
         "max_active": max(p.max_active for p in plans),
         "nplanes": max(p.nplanes for p in plans),
-        "max_steps": max(p.step_val.shape[-1] for p in plans),
     }
 
 
@@ -699,7 +318,6 @@ def pad_plans_uniform(plans: list, maxima: dict | None = None) -> list:
             p.patch_y,
             p.block,
             p.wstacking,
-            p.plane_group,
         )
         for p in plans
     }
@@ -720,14 +338,11 @@ def pad_plans_uniform(plans: list, maxima: dict | None = None) -> list:
     num_blocks = maxima["num_blocks"]
     max_active = maxima["max_active"]
     nplanes = maxima["nplanes"]
-    max_steps = maxima["max_steps"]
     block = plans[0].block
-    num_strips = plans[0].num_strips
-    num_segments = plans[0].num_y_segments
     num_vis = num_blocks * block
 
     def _pad1(arr, target, fill):
-        if arr is None:  # skipped coordinate export (Pallas mode)
+        if arr is None:  # column not exported by this plan
             return None
         if len(arr) == target:
             return arr
@@ -735,83 +350,24 @@ def pad_plans_uniform(plans: list, maxima: dict | None = None) -> list:
         out[: len(arr)] = arr
         return out
 
-    # Sentinel-only step rows for padding planes: they still write the
-    # (zero) grid so every plane's output is fully defined. The strip
-    # parity bit MUST match the kernel decode (bit 3) — a wrong parity
-    # makes a sentinel wait on the other buffer's never-started write
-    # DMA and deadlocks the kernel.
-    sent_val = (-1 - np.arange(num_strips)).astype(np.int32)
-    sent_aux = ((np.arange(num_strips) % 2) << 3).astype(np.int32)
-
     padded = []
     for p in plans:
         table = np.full((nplanes, max_active), -1, dtype=np.int32)
         table[: p.active_table.shape[0], : p.active_table.shape[1]] = (
             p.active_table
         )
-        # Group-mode tables have one row per plane GROUP.
-        num_rows = -(-nplanes // p.plane_group)
-        shape = (num_rows, num_segments, max_steps)
-        step_val = np.full(shape, -2, dtype=np.int32)
-        step_aux = np.zeros(shape, dtype=np.int32)
-        step_aux2 = np.zeros(shape, dtype=np.int32)
-        step_val[:, :, :num_strips] = sent_val
-        step_aux[:, :, :num_strips] = sent_aux
-        rows, _, cols = p.step_val.shape
-        step_val[:rows, :, :cols] = p.step_val
-        step_val[:rows, :, cols:] = -2
-        step_aux[:rows, :, :cols] = p.step_aux
-        step_aux[:rows, :, cols:] = 0
-        step_aux2[:rows, :, :cols] = p.step_aux2
-        step_count = np.full(
-            (num_rows, num_segments), num_strips, dtype=np.int32
-        )
-        step_count[:rows] = p.step_count
-        first_block = np.full(
-            (num_rows, num_segments, PREFETCH_DEPTH), -1, np.int32
-        )
-        first_block[:rows] = p.first_block
-        last_blocks = np.full(
-            (num_rows, num_segments, p.last_blocks.shape[-1]),
-            -1,
-            dtype=np.int32,
-        )
-        last_blocks[:rows] = p.last_blocks
         block_start = (
             np.arange(num_blocks, dtype=np.int64) * block
         ).astype(np.int32)
         # Native-precomputed derived columns: pad with the values the
-        # numpy path produces for padding slots (block_ox/oy = 0,
-        # x0/y0 = support, fx/fy = 0.5, ws = 0 => phase (1, 0)).
-        if p.packed is not None and p.packed.shape[1] < num_vis:
-            extra = num_vis - p.packed.shape[1]
-            pad_cols = np.zeros(
-                (p.packed.shape[0], extra), np.float32
-            )
-            pad_cols[0] = p.support + 0.5
-            pad_cols[1] = p.support + 0.5
-            packed = np.concatenate([p.packed, pad_cols], axis=1)
-            flip_sign = _pad1(p.flip_sign, num_vis, 1.0)
-            phase_cos = _pad1(p.phase_cos, num_vis, 1.0)
-            phase_sin = _pad1(p.phase_sin, num_vis, 0.0)
-        else:
-            packed = p.packed
-            flip_sign = p.flip_sign
-            phase_cos = p.phase_cos
-            phase_sin = p.phase_sin
+        # numpy path produces for padding slots (ws = 0 => phase
+        # (1, 0)).
         padded.append(
             dataclasses.replace(
                 p,
-                packed=packed,
-                flip_sign=flip_sign,
-                phase_cos=phase_cos,
-                phase_sin=phase_sin,
-                step_val=step_val,
-                step_aux=step_aux,
-                step_aux2=step_aux2,
-                step_count=step_count,
-                first_block=first_block,
-                last_blocks=last_blocks,
+                flip_sign=_pad1(p.flip_sign, num_vis, 1.0),
+                phase_cos=_pad1(p.phase_cos, num_vis, 1.0),
+                phase_sin=_pad1(p.phase_sin, num_vis, 0.0),
                 nplanes=nplanes,
                 num_blocks=num_blocks,
                 max_active=max_active,
@@ -841,17 +397,16 @@ def pad_plans_uniform(plans: list, maxima: dict | None = None) -> list:
     return padded
 
 
-#: Measured per-unit costs on one v5e chip feeding the sigma cost
-#: model, recalibrated to the round-3 kernels (48-row patches, fused
-#: Pallas FFT): gridding ~1.7e-9 s per (visibility x active plane) at
-#: W~6-8 (bench: 5.8M vis x 6 planes-per-vis in 0.058 s of gridding);
-#: plane FFT ~3.3e-10 s per cell (fused fft2 83 ms at 15360^2). Only
-#: their RATIO matters for the choice, so modest hardware drift does
-#: not flip it; cross-checked by measurement: the 5.8M-vis bench runs
-#: 70.6 Mvis/s at sigma 2.0 vs 65.8 at 1.5 (model picks 2.0), the
-#: 258k-vis production config is FFT-dominated (model picks 1.5).
-SIGMA_COST_GRID_PER_VIS_PLANE = 1.7e-9
-SIGMA_COST_FFT_PER_CELL_PLANE = 3.3e-10
+#: Per-unit costs feeding the sigma cost model, from ``chip_smoke.py``
+#: phase 4 on one NVIDIA H100 80GB HBM3 at a 700 W power limit:
+#: gridding 5.6e-8 s per (visibility x plane visit) — the bench-width
+#: invert (1.99 s for 5.84M visibilities at support 6) less its nine
+#: 4096^2 plane FFTs — and the four-step plane FFT at HIGHEST 1.2e-10
+#: s per grid cell (28.7 ms at 15360^2). Only their RATIO matters for
+#: the choice: the bench observation stays at 2.0, the FFT-heavier
+#: production configuration gets 1.5.
+SIGMA_COST_GRID_PER_VIS_PLANE = 5.6e-8
+SIGMA_COST_FFT_PER_CELL_PLANE = 1.2e-10
 
 #: Oversampling candidates for sigma="auto": 2.0 (smallest support,
 #: best for visibility-dominated work) and 1.5 (44% smaller padded
@@ -945,9 +500,8 @@ def prewarm_plan_arenas(num_vis: int) -> None:
         + [8 * ns, 8 * ns, 8 * ns]
     )
     # Python-side export buffers: order + order_enc (compact) and the
-    # packed/flip/phase columns (classic export).
+    # flip/phase columns (classic export).
     held = [alloc_populated(ns, np.int32) for _ in range(2)]
-    held += [alloc_populated(4 * ns, np.float32)]  # packed rows
     held += [alloc_populated(ns, np.float32) for _ in range(3)]
     del held  # finalizers park the buffers in the arena
 
@@ -967,8 +521,7 @@ def make_plan(
     min_active: int = 1,
     min_planes: int = 1,
     w_range: tuple | None = None,
-    export_coords: bool | None = None,
-    export_packed: bool = True,
+    export_slot_transform: bool = True,
 ) -> GridderPlan:
     """
     Build a :class:`GridderPlan` for visibilities ``uvw`` (nrow, 3) in
@@ -993,19 +546,11 @@ def make_plan(
     shapes up to common bounds — used by the sharded invert so every
     device runs an identical program over differently-sized shards.
 
-    ``export_coords`` controls whether the per-slot coordinate columns
-    (flip, x0, y0, fx, fy, ws) are materialized. Only the XLA fallback
-    gridder reads them — the Pallas kernels consume the fused
-    ``packed`` columns — and at production scale they cost ~170 MB of
-    host stores + page faults per plan. ``None`` resolves from the
-    gridder mode (``CIP_GRIDDER``/backend): skipped exactly when the
-    Pallas path will run. Callers that build BOTH paths from one plan
-    (accuracy cross-checks) must pass ``True``.
-
-    ``export_packed=False`` (compact staging) skips the packed /
-    flip_sign / phase columns too and exports ``order_enc`` instead —
-    the device prologue (ops/gridder.py:build_assemble) rebuilds
-    everything on device. Such a plan can only feed the compact path
+    ``export_slot_transform=False`` (compact staging) makes the native
+    planner skip the flip_sign / phase columns and export
+    ``order_enc`` instead — the device prologue
+    (ops/gridder.py:build_assemble) rebuilds the transform on device.
+    Such a plan can only feed the compact path
     (``compact_plan_host_arrays`` + ``build_assemble``).
     """
     uvw = np.asarray(uvw, dtype=np.float64)
@@ -1015,10 +560,6 @@ def make_plan(
 
     num_vis = len(uvw) * len(freqs)
     use_native = _native.available() and num_vis > 0
-    if export_coords is None:
-        from .gridder import resolve_gridder_mode
-
-        export_coords = resolve_gridder_mode(None) == "xla"
     if bin_group is None:
         bin_group = auto_bin_group(num_vis)
     bin_group = max(int(bin_group), 1)
@@ -1027,8 +568,8 @@ def make_plan(
 
     # Patch height is a perf knob: the ES factor build and the patch
     # matmul cost scale with patch_x, while smaller patches mean more
-    # tile columns (more strip sentinels, lower block fill).
-    # CIP_PATCH_X overrides for hardware A/B (multiple of 8, > W).
+    # tile columns (lower block fill). CIP_PATCH_X overrides
+    # (multiple of 8, > W).
     patch_x = int(
         __import__("os").environ.get("CIP_PATCH_X", DEFAULT_PATCH_X)
     )
@@ -1116,10 +657,9 @@ def make_plan(
     nplanes = max(nplanes, min_planes)
 
     # --- uv tiling -----------------------------------------------------
-    # Sublane axis: origins must be 8-aligned; lane axis: 128-aligned
-    # (TPU memory tiling constraints on dynamic DMA offsets). The lane
-    # axis tiles are the full 128-cell patch windows; lane straddlers
-    # are duplicated into both windows (see DEFAULT_PATCH_Y).
+    # x origins are 8-aligned, y origins 128-aligned. The y tiles are
+    # the full 128-cell patch windows; y straddlers are duplicated into
+    # both windows (see DEFAULT_PATCH_Y).
     tile_x = ((patch_x - support + 1) // 8) * 8
     tile_y = patch_y
     if tile_x <= 0 or support >= patch_y:
@@ -1130,38 +670,21 @@ def make_plan(
     half = support // 2
 
     # Footprint starts lie in [1 - W/2 + W, ngrid + W/2] in the alloc
-    # frame; strips must cover the largest start, and the alloc must
-    # also contain the wrap margin [0, ngrid + 2W) read by the fold.
-    # The alloc row extent is exactly num_strips * tile_x + carry so
-    # the strip kernel's write-once row decomposition tiles it.
+    # frame; the patch of the tile column holding the largest start
+    # must fit, and the alloc must also contain the wrap margin
+    # [0, ngrid + 2W) read by the fold.
     carry = patch_x - tile_x
     nalloc_min = ngrid + 2 * support
     max_start = ngrid + half
     ntx = max_start // tile_x + 1
-    num_strips = max(ntx, -(-(nalloc_min - carry) // tile_x))
-    nalloc_x = num_strips * tile_x + carry
-    # Lane alloc: whole 128-cell windows covering every footprint end
+    nalloc_x = max(ntx, -(-(nalloc_min - carry) // tile_x)) * tile_x
+    nalloc_x += carry
+    # y alloc: whole 128-cell windows covering every footprint end
     # (duplicated straddlers land one window above their start).
     nalloc_y = max(max_start + support, nalloc_min)
     nalloc_y = -(-nalloc_y // 128) * 128
-
-    # Lane segmentation: cap the strip-buffer width so the kernels'
-    # four (single-plane) or eight (plane-pair) (patch_x, seg_width)
-    # f32 buffers stay within ~10 MB of the chip's ~16 MB VMEM. Wide
-    # (production) grids run in several segments, seam-added by the
-    # gridder.
-    group = plane_group_of(wstacking, nplanes)
-    overhang = patch_y - tile_y
-    seg_cap = max_seg_width(patch_x, 4 * group)
-    num_y_segments = max(
-        1, -(-(nalloc_y - overhang) // (seg_cap - overhang))
-    )
-    seg_lanes = (
-        -(-(nalloc_y - overhang) // num_y_segments) + 127
-    ) // 128 * 128
-    nalloc_y = num_y_segments * seg_lanes + overhang
-    # Lane-window count for the (x-tile, y-window) key: every window of
-    # the final alloc is addressable so duplicated straddlers decode
+    # y-window count for the (x-tile, y-window) key: every window of
+    # the alloc is addressable so duplicated straddlers decode
     # injectively via (tile % nty).
     nty = nalloc_y // tile_y
 
@@ -1193,8 +716,7 @@ def make_plan(
             # (cos=1, sin=0) or psf()/slot-input inverts pick up a
             # spurious per-slot rotation (round-2 advisor finding).
             phase_factor=(-2.0 * np.pi * n_mid) if wstacking else 0.0,
-            export_coords=export_coords,
-            export_packed=export_packed,
+            export_slot_transform=export_slot_transform,
         )
         num_blocks = slot["num_blocks"]
         num_blocks_padded = len(slot["block_len"])
@@ -1214,7 +736,6 @@ def make_plan(
         block_oy_padded = slot["block_oy"]
         bin_lo = slot["bin_lo"][:num_blocks].astype(np.int64)
         bin_hi = slot["bin_hi"][:num_blocks].astype(np.int64)
-        slot_packed = slot["packed"]
         slot_flip_sign = slot["flip_sign"]
         slot_phase_cos = slot["phase_cos"]
         slot_phase_sin = slot["phase_sin"]
@@ -1260,8 +781,8 @@ def make_plan(
 
         # --- block decomposition (in sorted space) ----------------------
         # Blocks are (tile, wbin)-pure: every visibility in a block
-        # shares one patch origin AND one w data bin, so the strip
-        # kernel grids a block onto exactly its W-plane window. The
+        # shares one patch origin AND one w data bin, so the gridder
+        # visits a block on exactly its W-plane window. The
         # sorted space includes the duplicated lane straddlers
         # (``order`` maps slots to source samples, with duplicates).
         num_sorted = len(order)
@@ -1311,9 +832,8 @@ def make_plan(
             bin_hi = np.zeros(0, dtype=np.int64)
 
         # --- block-slot re-packing --------------------------------------
-        # Slot layout: block b owns [b*B, (b+1)*B); every DMA offset is
-        # b*B, statically aligned. slot_src maps slots to sorted
-        # indices (sentinel num_sorted for padding).
+        # Slot layout: block b owns [b*B, (b+1)*B). slot_src maps slots
+        # to sorted indices (sentinel num_sorted for padding).
         num_blocks_padded = max(num_blocks, min_blocks, 1)
         num_slots = num_blocks_padded * block
         slot_idx = np.arange(num_slots)
@@ -1353,13 +873,12 @@ def make_plan(
         block_ox_padded = _pad_blocks(block_ox, np.int32)
         block_oy_padded = _pad_blocks(block_oy, np.int32)
         block_len_padded = _pad_blocks(block_len, np.int32)
-        slot_packed = None
         slot_flip_sign = None
         slot_phase_cos = None
         slot_phase_sin = None
         slot_order_enc = None
 
-    # --- shared tail: plane windows, step programs, assembly ------------
+    # --- shared tail: plane windows, assembly -------------------------
     # Data bin q -> active plane window [q, q + W) (floor binning)
     if num_blocks:
         plane_lo = np.maximum(bin_lo, 0)
@@ -1372,44 +891,6 @@ def make_plan(
         plane_lo, plane_hi, nplanes, min_active
     )
     max_active = active_table.shape[1]
-
-    block_strip = (
-        (block_ox_padded[:num_blocks] // tile_x).astype(np.int64)
-        if num_blocks
-        else np.zeros(0, dtype=np.int64)
-    )
-    block_segment = (
-        (block_oy_padded[:num_blocks] // seg_lanes).astype(np.int64)
-        if num_blocks
-        else np.zeros(0, dtype=np.int64)
-    )
-    # Group mode: table row k schedules planes [k*G, (k+1)*G) — a
-    # block is active on row k when its plane window intersects them.
-    # Group tables are PAIR-mode (build_step_tables): id-consecutive
-    # same-tile blocks share one double-width step, halving per-step
-    # scalar overhead on dense workloads. The single-plane kernels
-    # read the legacy encoding, so non-group tables stay unpaired.
-    if group > 1:
-        row_lo, row_hi = plane_lo // group, plane_hi // group
-        num_rows = -(-nplanes // group)
-        block_tile = (
-            block_ox_padded[:num_blocks].astype(np.int64)
-            * (1 << 32)
-            + block_oy_padded[:num_blocks].astype(np.int64)
-        )
-    else:
-        row_lo, row_hi, num_rows = plane_lo, plane_hi, nplanes
-        block_tile = None
-    step_tables = build_step_tables(
-        row_lo,
-        row_hi,
-        block_strip,
-        num_rows,
-        num_strips,
-        block_segment,
-        num_y_segments,
-        block_tile=block_tile,
-    )
 
     plane_w = w0_plane + dw * np.arange(nplanes, dtype=np.float64)
     quad_nodes, quad_folded = gauss_legendre_kernel_quadrature(
@@ -1456,14 +937,8 @@ def make_plan(
         plane_w=plane_w.astype(np.float32),
         quad_nodes=quad_nodes,
         quad_folded=quad_folded,
-        num_strips=num_strips,
-        plane_group=group,
-        num_y_segments=num_y_segments,
-        seg_lanes=seg_lanes,
-        packed=slot_packed,
         flip_sign=slot_flip_sign,
         phase_cos=slot_phase_cos,
         phase_sin=slot_phase_sin,
         order_enc=slot_order_enc,
-        **step_tables,
     )

@@ -3,10 +3,11 @@ Device mesh and multi-host bring-up helpers.
 
 The reference's distribution fabric is a dask scheduler plus ssh-started
 workers (reference: src/ska_sdp_cip/invert.py:212-270,
-slurm/csd3_icelake.sh:58-83). The TPU-native equivalent is a single
-SPMD program over a ``jax.sharding.Mesh``: per-host processes join via
+slurm/csd3_icelake.sh:58-83). Here it is a single SPMD program over a
+``jax.sharding.Mesh``: per-host processes join via
 ``jax.distributed.initialize`` and the compiler schedules all
-communication (psum over ICI/DCN) — there is no central scheduler.
+communication (collectives over NVLink within a host) — there is no
+central scheduler.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ def initialize_distributed(
     process_id: int | None = None,
 ) -> None:
     """
-    Join the multi-host SPMD world. No-op for single-process runs; on a
-    TPU pod slice the arguments are auto-detected from the environment.
+    Join the multi-host SPMD world. No-op for single-process runs; a
+    multi-process run passes the coordinator address, process count
+    and process id (auto-detection needs a cluster environment).
     This replaces the reference's scheduler/worker bring-up
     (reference: slurm/csd3_icelake.sh:33-83).
     """

@@ -98,14 +98,8 @@ def sharded_major_cycle_clean(
         mesh_axis=axis_name if distributed else None,
         num_shards=staging.mesh.devices.size if distributed else 1,
     )
-    # fft_impl="xla": see parallel/sharded_invert.py — fused-Pallas
-    # FFT under shard_map is not yet proven on hardware.
-    invert = build_invert(
-        plan0, slot_input=True, fft_impl="xla", **dist_kwargs
-    )
-    predict = build_predict(
-        plan0, slot_output=True, fft_impl="xla", **dist_kwargs
-    )
+    invert = build_invert(plan0, slot_input=True, **dist_kwargs)
+    predict = build_predict(plan0, slot_output=True, **dist_kwargs)
     total_weight = staging.total_weight
 
     def unstack(arrays):

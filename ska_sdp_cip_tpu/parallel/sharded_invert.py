@@ -1,5 +1,5 @@
 """
-Sharded SPMD invert: the TPU-native replacement for the reference's
+Sharded SPMD invert: the device-mesh replacement for the reference's
 dask-distributed invert (reference: src/ska_sdp_cip/invert.py:212-270).
 
 The dataset is partitioned into (row_chunks x freq_chunks) shards with
@@ -468,9 +468,7 @@ def sharded_invert_dataset(
     weighting: str = "natural",
     robust: float = 0.0,
     recorder=None,
-    gridder: str | None = None,
     sigma: float | str = 2.0,
-    fft_impl: str | None = "xla",
     fft_mode: str = "replicated",
 ) -> np.ndarray:
     """
@@ -480,16 +478,7 @@ def sharded_invert_dataset(
 
     ``recorder`` is an optional utils.task_metrics.TaskRecorder whose
     steps replace the reference's dask task stream tracing.
-    ``gridder`` selects the kernel backend per shard
-    (ops.gridder.resolve_gridder_mode): None/auto, "pallas", "xla", or
-    "pallas_interpret" (the production Pallas-inside-shard_map
-    composition, executable without TPU hardware). ``fft_impl``
-    selects the plane-FFT implementation (ops.gridder
-    .resolve_fft_impl); the sharded default stays "xla" until the
-    fused Pallas FFT is measured under shard_map on hardware —
-    the composition itself is proven in interpret mode
-    (tests/test_sharded_invert.py::test_fused_fft_composes_with_
-    shard_map). ``fft_mode="distributed"`` reduces the partial GRIDS
+    ``fft_mode="distributed"`` reduces the partial GRIDS
     (psum_scatter into column slabs) and runs each FFT axis pass
     locally with an all_to_all between them — the SURVEY section 7
     L4 design: per-device FFT FLOPs divide by the mesh size instead
@@ -530,8 +519,6 @@ def sharded_invert_dataset(
     invert = build_invert(
         staging.plans[0],
         slot_input=True,
-        gridder=gridder,
-        fft_impl=fft_impl,
         mesh_axis=axis_name if distributed else None,
         num_shards=staging.mesh.devices.size if distributed else 1,
     )

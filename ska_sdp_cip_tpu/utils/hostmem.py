@@ -5,9 +5,8 @@ The planning/staging path allocates many large (tens-to-hundreds of MB)
 short-lived host arrays. glibc serves allocations above the mmap
 threshold with fresh mmap'd pages and returns them to the kernel on
 free, so every temporary pays first-touch page faults again — on
-virtualized hosts with lazily-faulted memory (as in cloud TPU VMs)
-that degrades host staging to tens of MB/s while warm pages run at
-GB/s (measured 100x: 8 s vs 0.05 s for one 200 MB elementwise op).
+virtualized hosts with lazily-faulted memory (as in cloud VMs) that
+can slow host staging by orders of magnitude against warm pages.
 
 ``enable_malloc_reuse`` switches glibc to keep large blocks in the
 arena (``M_MMAP_MAX=0``) and never trim freed memory back to the OS
@@ -115,19 +114,12 @@ def alloc_populated(count: int, dtype) -> np.ndarray:
 
     ``np.empty`` maps pages lazily; on hosts with lazily-backed VM
     memory, serial first-touch faults are erratically slow — and so is
-    ``MAP_POPULATE`` (kernel-side but serial: measured decaying to
-    ~80 MB/s as process RSS grows on the bench VM, ~20 s of planning
-    stall per 2 GB of plan buffers). One 4096-stride touch per page
-    from a small thread pool keeps 8 fault streams in flight and
-    sustains 2-3 GB/s under the same pressure (faults resolve in the
-    hypervisor concurrently; the GIL is released on entry to the
-    kernel). Contents are zeroed (fresh kernel pages; the touch
-    writes zeros).
-
-    Measured in the collapsed regime (2026-08-21 bench VM): cold
-    faults 80-140 MB/s even with 8 streams, warm-buffer full rewrite
-    1.1-7 GB/s — the arena is the difference between ~2 s and ~50 ms
-    per 200 MB plan buffer once a process has planned before.
+    ``MAP_POPULATE`` (kernel-side but serial). One 4096-stride touch
+    per page from a small thread pool keeps 8 fault streams in flight
+    (faults resolve in the hypervisor concurrently; the GIL is
+    released on entry to the kernel). Contents are zeroed (fresh
+    kernel pages; the touch writes zeros). A warm arena buffer needs
+    no faults at all once a process has planned before.
     """
     import weakref
 

@@ -92,7 +92,7 @@ def save_tasks_json(
 
 class TaskRecorder:
     """
-    Host-side recorder of pipeline steps — the TPU-native replacement
+    Host-side recorder of pipeline steps — the replacement
     for wrapping runs in dask's ``get_task_stream()``
     (reference: apps/pipeline_app.py:94-107).
 

@@ -7,7 +7,7 @@ layout consumed by the tiled gridder. Same two-pass structure and file
 naming as the reference (reference: src/ska_sdp_cip/uvw_tiling/
 reorder.py:19-205), with the dask cluster replaced by host-local
 parallelism (a process pool): re-ordering is an ingest-time IO job, so
-it runs host-side; on a multi-host TPU deployment each host processes
+it runs host-side; on a multi-host deployment each host processes
 its stride of time intervals and of tile groups (``num_hosts`` /
 ``host_index``), using the shared filesystem exactly as the reference
 does for pass 2.

@@ -5,9 +5,9 @@ The reference's only gridder entry point is
 ``ducc0.wgridder.ms2dirty(uvw, freq, ms, wgt, npix_x, npix_y,
 pixsize_x, pixsize_y, epsilon, do_wstacking, nthreads, mask)``
 (reference: src/ska_sdp_cip/invert.py:170-183). This module provides
-the same call signatures on the TPU gridder so reference users can
+the same call signatures on the JAX gridder so reference users can
 switch imports without touching call sites. ``nthreads`` is accepted
-and ignored (XLA owns on-chip parallelism); non-square images or
+and ignored (XLA owns on-device parallelism); non-square images or
 anisotropic pixels are not supported (the reference never uses them).
 """
 

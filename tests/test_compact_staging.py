@@ -1,11 +1,8 @@
 """
-Compact staging path: on-device rebuild of the packed plan rows and
-slot-ordered visibilities from the raw (uvw, freqs, data-order vis)
-inputs must reproduce the host planner's staging.
-
-The host path stages f64-derived positions; the device prologue
-re-derives them with double-float f32 arithmetic, so agreement is at
-the ~1e-9-cell level — far inside the gridder's epsilon contract
+Compact staging path: on-device slot ordering of the raw data-order
+visibilities (conjugation flip and w-shift pre-phase re-derived from
+uvw with double-float f32 arithmetic) must reproduce the host
+planner's staging, far inside the gridder's epsilon contract
 (reference accuracy setting: invert.py:179, epsilon=1e-4).
 """
 
@@ -30,10 +27,7 @@ def problem():
     uvw, _ = synthetic_uvw(4, 24, max_baseline_m=6000.0, seed=11)
     freqs = np.linspace(1.40e9, 1.46e9, 5)
     pixel_size_lm = float(np.sin(np.radians(8.0 / 3600.0)))
-    plan = make_plan(
-        uvw, freqs, 512, pixel_size_lm, epsilon=1e-4,
-        export_coords=True,
-    )
+    plan = make_plan(uvw, freqs, 512, pixel_size_lm, epsilon=1e-4)
     rng = np.random.default_rng(5)
     shape = (len(uvw), len(freqs))
     vis = (
@@ -49,7 +43,7 @@ def _assembled(problem):
     compact_dev = {k: jnp.asarray(v) for k, v in compact.items()}
     assemble = build_assemble(plan)
     weighted = (vis * wgt).ravel()
-    return plan, vis, wgt, assemble(
+    return plan, vis, wgt, compact_dev, assemble(
         compact_dev,
         jnp.asarray(weighted.real),
         jnp.asarray(weighted.imag),
@@ -57,27 +51,8 @@ def _assembled(problem):
     )
 
 
-def test_packed_rows_match_host(problem):
-    plan, _, _, (arrays, _, _, _) = _assembled(problem)
-    host = plan_host_arrays(plan, slot_mode=True)["packed"]
-    dev = np.asarray(arrays["packed"])
-    valid = plan.order < plan.num_vis_data
-    # Positions: the double-float device path agrees with the host f64
-    # path to ~1e-9 cells before final rounding; the stored f32 values
-    # may differ by 1-2 ulp at patch scale (~3e-5 at ypos ~160).
-    assert np.abs(dev[0, valid] - host[0, valid]).max() < 1e-4
-    assert np.abs(dev[1, valid] - host[1, valid]).max() < 1e-4
-    # |w|: one f32 rounding each side.
-    ws_scale = max(np.abs(host[2]).max(), 1.0)
-    assert (
-        np.abs(dev[2, valid] - host[2, valid]).max() / ws_scale < 1e-6
-    )
-    # Padding slots must stay masked-safe (finite).
-    assert np.isfinite(dev).all()
-
-
 def test_slot_vis_and_weights_match_host(problem):
-    plan, vis, wgt, (_, re_s, im_s, wgt_s) = _assembled(problem)
+    plan, vis, wgt, _, (re_s, im_s, wgt_s) = _assembled(problem)
     weighted = (vis * wgt).ravel()
     re_h, im_h = stage_slot_vis(plan, weighted.real, weighted.imag)
     wgt_h = stage_slot_weights(plan, wgt.ravel())
@@ -88,25 +63,28 @@ def test_slot_vis_and_weights_match_host(problem):
 
 
 def test_compact_plan_without_packed_export(problem):
-    """A plan built with export_packed=False (no packed / flip_sign /
+    """A plan built with export_slot_transform=False (no flip_sign /
     phase columns, native order_enc instead) must assemble to the same
     dirty image as the fully-exported plan."""
     plan_full, uvw, freqs, vis, wgt = problem
     plan = make_plan(
         uvw, freqs, 512,
         plan_full.pixel_size_lm, epsilon=1e-4,
-        export_packed=False,
+        export_slot_transform=False,
     )
-    assert plan.packed is None and plan.phase_cos is None
-    compact = compact_plan_host_arrays(plan, uvw, freqs)
+    assert plan.phase_cos is None
+    compact = {
+        k: jnp.asarray(v)
+        for k, v in compact_plan_host_arrays(plan, uvw, freqs).items()
+    }
     weighted = (vis * wgt).ravel()
-    arrays, re_s, im_s = build_assemble(plan)(
-        {k: jnp.asarray(v) for k, v in compact.items()},
+    re_s, im_s = build_assemble(plan)(
+        compact,
         jnp.asarray(weighted.real),
         jnp.asarray(weighted.imag),
     )
     img = np.asarray(
-        build_invert(plan, slot_input=True)(arrays, re_s, im_s)
+        build_invert(plan, slot_input=True)(compact, re_s, im_s)
     )
     # Oracle: classic staging of the fully-exported plan.
     classic = {
@@ -127,35 +105,7 @@ def test_compact_plan_without_packed_export(problem):
     assert np.abs(img - img_classic).max() / scale < 1e-5
 
 
-def test_dirty_image_compact_path(monkeypatch, tmp_path):
-    """dirty_image's compact (Pallas-mode) branch — device prologue +
-    AOT-cached executable — must match the classic XLA-path result."""
-    from ska_sdp_cip_tpu.ops.gridder import dirty_image
-
-    uvw, _ = synthetic_uvw(2, 12, max_baseline_m=4000.0, seed=3)
-    freqs = np.linspace(1.4e9, 1.42e9, 2)
-    rng = np.random.default_rng(8)
-    shape = (len(uvw), 2)
-    vis = (
-        rng.normal(size=shape) + 1j * rng.normal(size=shape)
-    ).astype(np.complex64)
-    wgt = rng.uniform(0.5, 2.0, size=shape).astype(np.float32)
-    pixel_size_lm = float(np.sin(np.radians(20.0 / 3600.0)))
-
-    monkeypatch.delenv("CIP_GRIDDER", raising=False)
-    classic = dirty_image(
-        uvw, freqs, vis, wgt, 128, pixel_size_lm, epsilon=1e-3
-    )
-    monkeypatch.setenv("CIP_GRIDDER", "pallas_interpret")
-    monkeypatch.setenv("CIP_AOT_CACHE", str(tmp_path / "aot"))
-    compact = dirty_image(
-        uvw, freqs, vis, wgt, 128, pixel_size_lm, epsilon=1e-3
-    )
-    scale = np.abs(classic).max()
-    assert np.abs(compact - classic).max() / scale < 1e-4
-
-
-def test_packed_rows_match_host_python_planner(monkeypatch):
+def test_slot_vis_match_host_python_planner(monkeypatch):
     """Same agreement when the plan comes from the numpy fallback
     planner (no native engine): order/flip come from ``plan.flip``
     instead of the native ``flip_sign`` export."""
@@ -165,27 +115,26 @@ def test_packed_rows_match_host_python_planner(monkeypatch):
     uvw, _ = synthetic_uvw(3, 16, max_baseline_m=5000.0, seed=21)
     freqs = np.linspace(1.40e9, 1.45e9, 3)
     pixel_size_lm = float(np.sin(np.radians(10.0 / 3600.0)))
-    plan = make_plan(
-        uvw, freqs, 256, pixel_size_lm, epsilon=1e-4,
-        export_coords=True,
-    )
+    plan = make_plan(uvw, freqs, 256, pixel_size_lm, epsilon=1e-4)
     assert plan.flip_sign is None  # really the python planner
     compact = compact_plan_host_arrays(plan, uvw, freqs)
+    rng = np.random.default_rng(4)
     n = plan.num_vis_data
-    arrays, _, _ = build_assemble(plan)(
+    re = rng.normal(size=n).astype(np.float32)
+    im = rng.normal(size=n).astype(np.float32)
+    re_s, im_s = build_assemble(plan)(
         {k: jnp.asarray(v) for k, v in compact.items()},
-        jnp.zeros(n, jnp.float32),
-        jnp.zeros(n, jnp.float32),
+        jnp.asarray(re),
+        jnp.asarray(im),
     )
-    host = plan_host_arrays(plan, slot_mode=True)["packed"]
-    dev = np.asarray(arrays["packed"])
-    valid = plan.order < plan.num_vis_data
-    assert np.abs(dev[0, valid] - host[0, valid]).max() < 1e-4
-    assert np.abs(dev[1, valid] - host[1, valid]).max() < 1e-4
+    re_h, im_h = stage_slot_vis(plan, re, im)
+    scale = max(np.abs(re_h).max(), np.abs(im_h).max())
+    assert np.abs(np.asarray(re_s) - re_h).max() / scale < 1e-5
+    assert np.abs(np.asarray(im_s) - im_h).max() / scale < 1e-5
 
 
 def test_compact_dirty_image_matches_classic(problem):
-    plan, vis, wgt, (arrays, re_s, im_s, _) = _assembled(problem)
+    plan, vis, wgt, arrays, (re_s, im_s, _) = _assembled(problem)
     invert = build_invert(plan, slot_input=True)
     img_compact = np.asarray(invert(arrays, re_s, im_s))
 

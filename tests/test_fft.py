@@ -105,3 +105,63 @@ def test_in_crop_matches_zero_padded(data):
     np.testing.assert_allclose(
         np.asarray(crop_im), np.asarray(full_im), atol=_tol(full_im)
     )
+
+
+#: Even 7-smooth lengths (the grid sizes ``next_even_grid_size`` picks),
+#: with square, unequal and prime-heavy four-step factorizations.
+SMOOTH_LENGTHS = [6, 14, 30, 42, 64, 70, 98, 120, 126, 210]
+
+
+def _axis_reference(x, axis, sign):
+    """Unnormalized, centred (fftshift o DFT o ifftshift) numpy DFT."""
+    shifted = np.fft.ifftshift(x, axes=axis)
+    out = (
+        np.fft.fft(shifted, axis=axis)
+        if sign == -1
+        else np.fft.ifft(shifted, axis=axis) * x.shape[axis]
+    )
+    return np.fft.fftshift(out, axes=axis)
+
+
+@pytest.mark.parametrize("crop", ["none", "in", "out"])
+@pytest.mark.parametrize("sign", [-1, +1])
+@pytest.mark.parametrize("n", SMOOTH_LENGTHS)
+def test_axis_passes_match_numpy(n, sign, crop):
+    """Both axis passes of the centred four-step DFT against numpy in
+    float64, for 7-smooth lengths, both signs, and input/output crops
+    (the invert crops its output to the image, predict pads its input
+    from it)."""
+    rng = np.random.default_rng(n)
+    m = 5
+    x = rng.normal(size=(m, n)) + 1j * rng.normal(size=(m, n))
+    f = fft_plan_arrays(make_fft_plan(n, shifted=True))
+    c0, size = n // 4, n // 2
+    kwargs = {}
+    if crop == "in":
+        x[:, :c0] = 0.0
+        x[:, c0 + size :] = 0.0
+        kwargs["in_crop"] = (c0, size)
+        last_in, first_in = x[:, c0 : c0 + size], x.T[c0 : c0 + size]
+    else:
+        last_in, first_in = x, x.T
+        if crop == "out":
+            kwargs["out_crop"] = (c0, size)
+    ref_last = _axis_reference(x, -1, sign)
+    ref_first = _axis_reference(x.T, 0, sign)
+    if crop == "out":
+        ref_last = ref_last[:, c0 : c0 + size]
+        ref_first = ref_first[c0 : c0 + size]
+
+    for fn, inp, ref in (
+        (fft_last_axis, last_in, ref_last),
+        (fft_first_axis, first_in, ref_first),
+    ):
+        re, im = fn(
+            jnp.asarray(inp.real, jnp.float32),
+            jnp.asarray(inp.imag, jnp.float32),
+            f,
+            sign=sign,
+            **kwargs,
+        )
+        got = np.asarray(re) + 1j * np.asarray(im)
+        np.testing.assert_allclose(got, ref, atol=_tol(ref))

@@ -49,36 +49,6 @@ def test_sharded_matches_local(reader):
     ]
 
 
-def test_pallas_gridder_composes_with_shard_map(reader):
-    """
-    The production composition — the Pallas strip kernel INSIDE
-    shard_map — proven without TPU hardware via interpret mode
-    (round-2 verdict missing #5: every multi-device path previously
-    forced the XLA gridder). Must equal the XLA sharded result.
-    """
-    mesh = make_device_mesh(2)
-    kwargs = dict(
-        mesh=mesh, row_chunks=2, freq_chunks=1, num_pixels=64
-    )
-    npix = kwargs.pop("num_pixels")
-    xla = sharded_invert_dataset(
-        reader, npix, PIXEL_SIZE_ASEC, gridder="xla", **kwargs
-    )
-    pallas = sharded_invert_dataset(
-        reader,
-        npix,
-        PIXEL_SIZE_ASEC,
-        gridder="pallas_interpret",
-        **kwargs,
-    )
-    np.testing.assert_allclose(
-        pallas,
-        xla,
-        atol=TOLERANCE * np.abs(xla).max(),
-        rtol=TOLERANCE,
-    )
-
-
 def test_sharded_default_chunking(reader):
     """Defaults mirror the reference: freq chunks = min(nchan, ndev)."""
     mesh = make_device_mesh(8)
@@ -165,28 +135,6 @@ def test_staging_loads_only_local_shards(tmp_path, monkeypatch):
     with pytest.raises(KeyError):
         si.stage_sharded_inputs(reader, 64, 30.0, mesh=mesh)
     assert len(loaded) == 2
-
-
-def test_fused_fft_composes_with_shard_map(reader):
-    """
-    Fused-Pallas FFT passes INSIDE shard_map (interpret mode on the
-    CPU mesh), including the deferred per-invert transpose, must
-    equal the XLA-FFT sharded result.
-    """
-    mesh = make_device_mesh(2)
-    kwargs = dict(mesh=mesh, row_chunks=2, freq_chunks=1)
-    xla = sharded_invert_dataset(
-        reader, 128, PIXEL_SIZE_ASEC, fft_impl="xla", **kwargs
-    )
-    fused = sharded_invert_dataset(
-        reader, 128, PIXEL_SIZE_ASEC, fft_impl="pallas", **kwargs
-    )
-    np.testing.assert_allclose(
-        fused,
-        xla,
-        atol=3e-5 * np.abs(xla).max(),
-        rtol=0,
-    )
 
 
 def test_distributed_fft_matches_replicated(reader):
